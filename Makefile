@@ -1,12 +1,15 @@
 # Developer entry points (see README.md / CLAUDE.md)
 
-.PHONY: test test-tpu bench validate golden-regen lint
+.PHONY: test test-chip chip-smoke bench validate golden-regen lint
 
 test:
 	python -m pytest tests/ -q
 
-test-tpu:
-	RUN_TPU_TESTS=1 python -m pytest tests/ -q -m tpu
+test-chip:
+	JAX_PLATFORMS=cuda python -m pytest tests/ -q -m chip
+
+chip-smoke:
+	python chip_smoke.py
 
 bench:
 	python bench.py
@@ -18,4 +21,4 @@ golden-regen:
 	GOLDEN_REGEN=1 python -m pytest tests/test_golden.py -q
 
 lint:
-	python -m compileall -q gppvae_tpu tests bench.py validate.py __graft_entry__.py
+	python -m compileall -q gppvae_tpu tests bench.py validate.py __graft_entry__.py chip_smoke.py

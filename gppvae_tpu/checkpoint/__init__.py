@@ -1,12 +1,12 @@
-"""Checkpoint/resume via Orbax (SURVEY.md §5: checkpoint/resume).
+"""Checkpoint/resume as single numpy `.npz` files (SURVEY.md §5).
 
 The reference torch.saves VAE (and GP) weights each epoch and resumes GPPVAE
 from `--vae_weights`; here the full train-state pytree (params, optimizer
-states, epoch counter) checkpoints through Orbax, and the cross-script
+states, epoch counter) checkpoints to one file, and the cross-script
 `--vae_weights` handoff is preserved as a params-subtree save/load.
 """
 
-from gppvae_tpu.checkpoint.orbax_io import (
+from gppvae_tpu.checkpoint.npz_io import (
     CheckpointFormatError,
     FORMAT_VERSION,
     load_pytree,

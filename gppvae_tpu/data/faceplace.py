@@ -93,8 +93,9 @@ def synthetic_faces(
 
 
 def _load_h5(path: str) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    import h5py
+    from gppvae_tpu.utils.deps import optional_import
 
+    h5py = optional_import("h5py", "reading a FacePlace .h5 file")
     with h5py.File(path, "r") as f:
         def pick(keys):
             for k in keys:

@@ -14,8 +14,9 @@ MNIST, SURVEY.md §6 note):
   * 'synthetic'    — procedural glyph renderer, deterministic per seed, any
                      number of instances (benchmark-shape fidelity at N=6400)
 
-Images are padded/resized to `image_size`² (default 32 — MXU-friendly and
-keeps the full digit inside the frame under rotation).
+Images are padded/resized to `image_size`² (default 32 — a power of two
+for the conv stack, and keeps the full digit inside the frame under
+rotation).
 """
 
 from __future__ import annotations
@@ -62,9 +63,10 @@ def synthetic_digit3(num_instances: int, seed: int, hw: int = 28) -> np.ndarray:
 
 
 def _sklearn_digits(digit: int, num_instances: int) -> np.ndarray:
-    from sklearn.datasets import load_digits
+    from gppvae_tpu.utils.deps import optional_import
 
-    data = load_digits()
+    datasets = optional_import("sklearn.datasets", "the 'sklearn' digits source")
+    data = datasets.load_digits()
     imgs = data.images[data.target == digit].astype(np.float32) / 16.0
     if len(imgs) < num_instances:
         reps = -(-num_instances // len(imgs))

@@ -1,7 +1,7 @@
 """Host-side image transforms for dataset building (pure numpy).
 
 Dataset construction is a one-shot, cached host pass (SURVEY.md §3.5) — it
-never touches the TPU hot path — so these are plain vectorized numpy. The
+never touches the device hot path — so these are plain vectorized numpy. The
 bilinear rotator is framework-owned (rather than scipy's) to keep the builder
 deterministic across library versions; `gppvae_tpu/native/` provides an
 optional C++ drop-in for bulk builds.

@@ -11,10 +11,10 @@ import os
 
 
 def plot_history(metrics_path: str, out_path: str | None = None) -> str:
-    import matplotlib
+    from gppvae_tpu.utils.deps import optional_import
 
-    matplotlib.use("Agg")
-    import matplotlib.pyplot as plt
+    optional_import("matplotlib", "plotting").use("Agg")
+    plt = optional_import("matplotlib.pyplot", "plotting")
 
     records = []
     with open(metrics_path) as f:

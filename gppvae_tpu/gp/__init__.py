@@ -2,9 +2,8 @@
 
 The math layer of the framework (reference counterpart: pysrc/faceplace/gp.py,
 SURVEY.md §2.1 / §3.3). Everything here is pure, jit-able jax.numpy on
-HBM-resident matrices; the hot GEMM/reduction inner ops are routed through
-`gppvae_tpu.ops` so they can be served by either XLA or hand-tuned Pallas
-kernels.
+device-resident matrices; the hot GEMM/reduction inner ops are routed through
+`gppvae_tpu.ops`, which names them in one place.
 
 Model: the N×L latent matrix Z has iid columns z_l ~ N(0, K) with
 

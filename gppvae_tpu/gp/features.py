@@ -23,13 +23,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-# above this row count the one-hot backward's (n, P) matrix stops being a
-# good trade against XLA's scatter — fall back to the plain gather. Measured
-# on the v5e (headline joint config, same minute): one-hot for BOTH gathers
-# (P=400 objects + Q=16 views) regressed the epoch ~4% — the (n, 400)
-# one-hot build + an 8-lane (400,8) output dot cost more than the scatter
-# it replaced; only the small-table gather (the view features, whose (16,7)
-# dW scatter was trace_r3b's fusion.1167 at 4.4%) is a win.
+# above this table size the one-hot backward's (n, P) matrix is no longer
+# a cheap trade against XLA's scatter — fall back to the plain gather. Only
+# the small view-feature table (Q rows) takes the one-hot path; where the
+# crossover lies on the GPU is not measured yet.
 _ONEHOT_BWD_MAX_ROWS = 64
 
 
@@ -45,9 +42,8 @@ def _take_rows_fwd(A, idx):
 def _take_rows_bwd(res, ct):
     idx, P = res
     # dA via a one-hot matmul instead of the gather's default scatter-add
-    # transpose: XLA lowers the scatter as a slow kCustom per-step fusion
-    # (trace_r3b fusion.1167, 4.4% of device time); the (P, n)·(n, M) dot
-    # rides the MXU. Same values up to summation order over duplicate ids.
+    # transpose: a (P, n)·(n, M) dot rather than a scatter. Same values up
+    # to summation order over duplicate ids.
     dA = jax.nn.one_hot(idx, P, dtype=ct.dtype).T @ ct
     return dA, np.zeros(idx.shape, dtype=jax.dtypes.float0)
 
@@ -143,7 +139,7 @@ def make_rff_map(
     to the *learned* object features it upgrades the object kernel from
     linear to stationary-nonlinear while keeping the whole GP inside the
     same low-rank Woodbury machinery (rank m·M_w instead of an N×N dense
-    kernel). This is the TPU-native realization of the fork's sparse-GP
+    kernel). This is the realization of the fork's sparse-GP
     scaling direction (SURVEY.md §2.1 "thesis extensions"; cf. PAPERS.md
     inverse-free SVGP / scalable log-det lines): approximation rank is a
     config knob, solves stay O(N·R²).

@@ -1,6 +1,6 @@
 """Woodbury / matrix-determinant-lemma path for the low-rank GP prior.
 
-This is the TPU-native rebuild of the reference's GP module
+This is the rebuild of the reference's GP module
 (pysrc/faceplace/gp.py — factor prep ("U_UBi_Shb"-style), `nll`, predictive
 posterior; SURVEY.md §3.3). The covariance
 
@@ -16,9 +16,8 @@ is never materialized. With U = [√v_1·V_1 | … | √v_k·V_k] (N×R):
     K(*,·) K⁻¹ Z = U* · (B⁻¹ Uᵀ Z) / v_n      (GP-predictive latent means)
 
 Cost: one N×R→R×R Gram, one N×L→R×L GEMM, one R×R Cholesky, fused
-reductions. O(N·R²+N·R·L) — the big GEMMs are the Pallas/MXU targets and are
-routed through `gppvae_tpu.ops`; the tiny R×R Cholesky stays on
-`jax.lax.linalg`.
+reductions. O(N·R²+N·R·L) — the big GEMMs are routed through
+`gppvae_tpu.ops`; the tiny R×R Cholesky stays on `jax.lax.linalg`.
 
 Everything is shape-static and jit-safe. dtype follows the inputs (tests run
 float64 on CPU; training runs float32).
@@ -143,8 +142,8 @@ def gp_nll_from_features(
     (SURVEY.md §3.2 Phase B); grads w.r.t. every argument flow by autodiff —
     no hand-derived coefficient formulas to get subtly wrong.
 
-    Uses the fused `ops.factor_prep` (Gram + projection + ‖Z‖² in one HBM
-    pass on the pallas backend) rather than factorize()+gp_nll().
+    Uses `ops.factor_prep` (Gram + projection + ‖Z‖²) and
+    `ops.woodbury_nll_core` rather than factorize()+gp_nll().
 
     num_rows: the TRUE dataset size when Z/Vs carry trailing all-zero
     padding rows (the mesh trainers pad N to a multiple of the data-axis

@@ -1,8 +1,8 @@
 """Neural nets: conv Encoder/Decoder stacks and the VAE assembly.
 
 Reference counterpart: pysrc/faceplace/vae.py (SURVEY.md §2.1 "Conv VAE").
-flax.linen modules; compute dtype is configurable (bfloat16 on TPU for the
-MXU, float32 params; the GP layer always consumes float32 latents).
+Plain-JAX modules; compute dtype is configurable (bfloat16 for the tensor
+cores, float32 params; the GP layer always consumes float32 latents).
 """
 
 from gppvae_tpu.models.cvae import CVAE

@@ -13,28 +13,20 @@ one-hot vector concatenated to z.
 
 from __future__ import annotations
 
-from typing import Sequence
+import dataclasses
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
 
-from gppvae_tpu.models.vae import ConvDecoder, ConvEncoder
+from gppvae_tpu.models.vae import VAE, reparameterize
 
 
-class CVAE(nn.Module):
-    zdim: int
-    image_shape: tuple[int, int, int]
-    num_views: int
-    enc_features: Sequence[int] = (32, 64, 128)
-    dec_features: Sequence[int] = (128, 64, 32)
-    dtype: jnp.dtype = jnp.float32
-    upsample: str = "resize"
+@dataclasses.dataclass(frozen=True)
+class CVAE(VAE):
+    """VAE whose encoder and decoder also see the view id (same parameter
+    tree as VAE, wider first layers)."""
 
-    def setup(self):
-        self.encoder = ConvEncoder(self.zdim, self.enc_features, self.dtype)
-        self.decoder = ConvDecoder(self.image_shape, self.dec_features,
-                                   self.dtype, self.upsample)
+    num_views: int = dataclasses.field(kw_only=True)
 
     def _cond_planes(self, y: jax.Array, q: jax.Array) -> jax.Array:
         onehot = jax.nn.one_hot(q, self.num_views, dtype=y.dtype)
@@ -43,16 +35,24 @@ class CVAE(nn.Module):
         )
         return jnp.concatenate([y, planes], axis=-1)
 
-    def encode(self, y: jax.Array, q: jax.Array):
-        return self.encoder(self._cond_planes(y, q))
+    def init(self, key, y: jax.Array, q: jax.Array, rng=None) -> dict:
+        k_enc, k_dec = jax.random.split(key)
+        return {"params": {
+            "encoder": self.encoder.init_params(
+                k_enc, (*y.shape[:3], y.shape[3] + self.num_views)),
+            "decoder": self.decoder.init_params(
+                k_dec, self.zdim + self.num_views),
+        }}
 
-    def decode(self, z: jax.Array, q: jax.Array):
+    def encode(self, p: dict, y: jax.Array, q: jax.Array):
+        return self.encoder.forward(p["encoder"], self._cond_planes(y, q))
+
+    def decode(self, p: dict, z: jax.Array, q: jax.Array):
         onehot = jax.nn.one_hot(q, self.num_views, dtype=z.dtype)
-        return self.decoder(jnp.concatenate([z, onehot], axis=-1))
+        return self.decoder.forward(
+            p["decoder"], jnp.concatenate([z, onehot], axis=-1))
 
-    def __call__(self, y: jax.Array, q: jax.Array, rng: jax.Array):
-        from gppvae_tpu.models.vae import reparameterize
-
-        mu, logvar = self.encode(y, q)
+    def forward(self, p: dict, y: jax.Array, q: jax.Array, rng: jax.Array):
+        mu, logvar = self.encode(p, y, q)
         z = reparameterize(rng, mu, logvar)
-        return self.decode(z, q), mu, logvar, z
+        return self.decode(p, z, q), mu, logvar, z

@@ -1,28 +1,67 @@
-"""Convolutional VAE encoder/decoder (flax.linen).
+"""Convolutional VAE encoder/decoder in plain JAX.
 
-TPU-first rebuild of the reference's conv VAE (pysrc/faceplace/vae.py,
-SURVEY.md §2.1): stride-2 conv stack → linear heads (z_mu, z_logvar);
-decoder mirrors it with resize+conv upsampling. Design notes:
+Rebuild of the reference's conv VAE (pysrc/faceplace/vae.py, SURVEY.md
+§2.1): stride-2 conv stack → linear heads (z_mu, z_logvar); decoder
+mirrors it with resize+conv upsampling. Design notes:
 
-  * channels-last NHWC (XLA's native TPU conv layout), 3×3 kernels, stride-2
-    downsampling — everything lowers straight onto the MXU.
+  * channels-last NHWC, 3×3 kernels, stride-2 downsampling.
   * upsampling is nearest-resize + conv rather than transposed conv:
     identical expressiveness, no checkerboard artifacts, and a friendlier
     XLA lowering than conv_transpose.
-  * `dtype` sets the activation/compute dtype (bfloat16 for speed on the
-    MXU); params stay float32; outputs are cast back to float32.
+  * `dtype` sets the activation/compute dtype (bfloat16 for tensor-core
+    speed); params stay float32; outputs are cast back to float32.
   * decoder output is a logit image; the trainer applies a sigmoid for the
     [0,1]-normalized datasets.
+
+The modules are frozen dataclasses with a flax-style surface —
+`init(key, *example_args) -> {"params": tree}` and
+`apply(variables, *args, method=VAE.encode)` — and the flax parameter tree
+(`encoder/Conv_0/kernel`, `encoder/head_mu/bias`, …), so checkpoints and
+serving artifacts keep their layout. Kernels are LeCun-normal, biases zero.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Sequence
 
 import jax
 import jax.numpy as jnp
-from flax import linen as nn
+
+_lecun_normal = jax.nn.initializers.lecun_normal()
+
+
+def _dense_init(key, n_in: int, n_out: int) -> dict:
+    return {"kernel": _lecun_normal(key, (n_in, n_out), jnp.float32),
+            "bias": jnp.zeros((n_out,), jnp.float32)}
+
+
+def _conv_init(key, c_in: int, c_out: int) -> dict:
+    return {"kernel": _lecun_normal(key, (3, 3, c_in, c_out), jnp.float32),
+            "bias": jnp.zeros((c_out,), jnp.float32)}
+
+
+def _dense(p: dict, x: jax.Array, dtype) -> jax.Array:
+    return jnp.dot(x.astype(dtype), p["kernel"].astype(dtype)) + p["bias"].astype(dtype)
+
+
+def _conv(p: dict, x: jax.Array, dtype, stride: int = 1) -> jax.Array:
+    """3×3 SAME conv, NHWC/HWIO, computed in `dtype`."""
+    y = jax.lax.conv_general_dilated(
+        x.astype(dtype), p["kernel"].astype(dtype),
+        window_strides=(stride, stride), padding="SAME",
+        dimension_numbers=("NHWC", "HWIO", "NHWC"),
+    )
+    return y + p["bias"].astype(dtype)
+
+
+class _Module:
+    """flax-style `apply`: `method` is an unbound method of the class taking
+    (self, params, *args); the default is the module's `forward`."""
+
+    def apply(self, variables, *args, method=None):
+        return (method or type(self).forward)(self, variables["params"], *args)
 
 
 def reparameterize(rng: jax.Array, mu: jax.Array, logvar: jax.Array) -> jax.Array:
@@ -157,24 +196,40 @@ def _encode_all_sharded(model, params, images, chunk, method, extra,
     return Z.reshape(n, -1)
 
 
-class ConvEncoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvEncoder(_Module):
     """Stride-2 conv stack → flatten → (z_mu, z_logvar) heads."""
 
     zdim: int
     features: Sequence[int] = (32, 64, 128)
     dtype: jnp.dtype = jnp.float32
 
-    @nn.compact
-    def __call__(self, y: jax.Array) -> tuple[jax.Array, jax.Array]:
+    def init_params(self, key, input_shape) -> dict:
+        """Params for NHWC inputs of `input_shape` (batch dim ignored)."""
+        _, h, w, c = input_shape
+        keys = jax.random.split(key, len(self.features) + 3)
+        p = {}
+        for i, f in enumerate(self.features):
+            p[f"Conv_{i}"] = _conv_init(keys[i], c, f)
+            h, w, c = -(-h // 2), -(-w // 2), f
+        hidden = 2 * self.zdim * 4
+        k = len(self.features)
+        p["Dense_0"] = _dense_init(keys[k], h * w * c, hidden)
+        p["head_mu"] = _dense_init(keys[k + 1], hidden, self.zdim)
+        p["head_logvar"] = _dense_init(keys[k + 2], hidden, self.zdim)
+        return p
+
+    def init(self, key, y: jax.Array) -> dict:
+        return {"params": self.init_params(key, y.shape)}
+
+    def forward(self, p: dict, y: jax.Array) -> tuple[jax.Array, jax.Array]:
         h = y.astype(self.dtype)
-        for f in self.features:
-            h = nn.Conv(f, (3, 3), strides=(2, 2), padding="SAME",
-                        dtype=self.dtype)(h)
-            h = nn.elu(h)
+        for i in range(len(self.features)):
+            h = jax.nn.elu(_conv(p[f"Conv_{i}"], h, self.dtype, stride=2))
         h = h.reshape(h.shape[0], -1)
-        h = nn.elu(nn.Dense(2 * self.zdim * 4, dtype=self.dtype)(h))
-        mu = nn.Dense(self.zdim, dtype=self.dtype, name="head_mu")(h)
-        logvar = nn.Dense(self.zdim, dtype=self.dtype, name="head_logvar")(h)
+        h = jax.nn.elu(_dense(p["Dense_0"], h, self.dtype))
+        mu = _dense(p["head_mu"], h, self.dtype)
+        logvar = _dense(p["head_logvar"], h, self.dtype)
         return mu.astype(jnp.float32), logvar.astype(jnp.float32)
 
 
@@ -190,40 +245,32 @@ _PHASE_TAPS = (
 )
 
 
-def _subpixel_upconv(conv: nn.Conv, x: jax.Array) -> jax.Array:
-    """nearest-resize×2 followed by `conv` (3×3 SAME), computed without
+def _subpixel_upconv(p: dict, x: jax.Array, dtype) -> jax.Array:
+    """nearest-resize×2 followed by the 3×3 SAME conv `p`, computed without
     materializing the upsampled tensor — an exact algebraic rewrite (same
     parameters, same math up to fp reassociation): the upsample duplicates
     pixels, so the 3×3 conv's taps that land on the same low-res pixel can
     be pre-summed. The decoder's resize+conv blocks are ~90% of GPPVAE
-    epoch FLOPs (utils/flops.py), making this the main MXU-efficiency lever
-    at research shapes (BASELINE.md roofline).
+    epoch FLOPs (utils/flops.py).
 
-    Three equivalent lowerings, selectable via GPPVAE_SUBPIXEL_IMPL
-    (round-3 A/B on the v5e, headline joint config, s/epoch):
+    Three equivalent lowerings, selectable via GPPVAE_SUBPIXEL_IMPL:
 
-      'dilated' (DEFAULT, 0.0154): one 4×4 conv with lhs_dilation=2 — the
-          composed transposed conv. XLA's native backprop-conv machinery
-          splits the phases internally and writes the interleaved output
-          directly; no depth-to-space pass exists at the HLO level.
-      'stack' (0.0213): 2×2 conv with 4f output channels + slice/stack
-          depth-to-space — the round-2 formulation; the stack/reshape
-          materializes the phase tensor twice per stage fwd+bwd (HLO
-          copy.1149/.1154 ≈ the 10% "copy" share in demo/trace_r2_fast).
-      'padsum' (0.0243): interleave as a sum of interior-padded phases —
-          fuses to one kernel but strided sublane writes lose to the
-          copies they replace (negative result, kept for re-measurement).
+      'dilated' (DEFAULT): one 4×4 conv with lhs_dilation=2 — the composed
+          transposed conv. XLA's backprop-conv machinery splits the phases
+          internally and writes the interleaved output directly; no
+          depth-to-space pass exists at the HLO level.
+      'stack': 2×2 conv with 4f output channels + slice/stack
+          depth-to-space; the stack/reshape materializes the phase tensor.
+      'padsum': interleave as a sum of interior-padded phases.
+
+    Which is fastest on the GPU is not measured yet.
     """
-    # materialize the shared 3×3 params; dummy output is unused → XLA DCE
-    _ = conv(x[:, :1, :1, :])
-    w3 = conv.variables["params"]["kernel"]  # (3, 3, cin, f)
-    bias = conv.variables["params"]["bias"]  # (f,)
-    x, w3, bias = nn.dtypes.promote_dtype(x, w3, bias, dtype=conv.dtype)
+    x = x.astype(dtype)
+    w3 = p["kernel"].astype(dtype)  # (3, 3, cin, f)
+    bias = p["bias"].astype(dtype)  # (f,)
     f = w3.shape[-1]
-    # read the env ONCE, validated: a typo'd value used to fall through to
-    # the second (default 'stack') read site and silently run the slow path
-    # (round-3 VERDICT weak #5 / ADVICE) — same silent-misdispatch hazard
-    # ops/dispatch.py rejects
+    # read the env ONCE, validated: a typo'd value must not fall through to
+    # a default lowering silently
     impl = os.environ.get("GPPVAE_SUBPIXEL_IMPL", "dilated")
     if impl not in ("dilated", "stack", "padsum"):
         raise ValueError(
@@ -233,15 +280,10 @@ def _subpixel_upconv(conv: nn.Conv, x: jax.Array) -> jax.Array:
     if impl == "dilated":
         # transposed-conv formulation: compose nearest-up (2-tap kernel of
         # ones, stride-2 input dilation) with the 3×3 conv into ONE 4×4
-        # input-dilated conv — XLA's native backprop-conv path, no
-        # depth-to-space interleave at all. Per-axis tap map T[k,p] =
-        # [p - t = k - 1 for t∈{0,1}] (same merge algebra as _PHASE_TAPS).
-        # NEGATIVE RESULT (keep the einsum): rewriting this tap merge as a
-        # constant kron(T,T) (16,9) matmul over flattened taps measured 6%
-        # SLOWER end-to-end (0.0167 → 0.0177 same-minute A/B) — XLA fuses
-        # the einsum's transpose INTO the weight-gradient conv (dw3 comes
-        # out directly, trace_r3b fusion.1180), and the matmul form broke
-        # that fusion, materializing dK4 (4,4,cin,f) separately every step.
+        # input-dilated conv. Per-axis tap map T[k,p] = [p - t = k - 1 for
+        # t∈{0,1}] (same merge algebra as _PHASE_TAPS). The tap merge stays
+        # an einsum so XLA can fuse its transpose into the weight-gradient
+        # conv.
         T = jnp.asarray(
             [[1.0, 0, 0], [1, 1, 0], [0, 1, 1], [0, 0, 1]], w3.dtype
         )  # (4, 3)
@@ -268,15 +310,14 @@ def _subpixel_upconv(conv: nn.Conv, x: jax.Array) -> jax.Array:
     )  # (b, h+1, w+1, 4f): window i covers low-res taps {i-1, i}
     hh, ww = x.shape[1], x.shape[2]
     if impl == "padsum":
-        # see docstring: measured slower than both alternatives
         zero = jnp.zeros((), o.dtype)
         y = None
         for dr in (0, 1):
             for dc in (0, 1):
-                p = o[:, dr : dr + hh, dc : dc + ww,
-                      (2 * dr + dc) * f : (2 * dr + dc + 1) * f]
+                ph = o[:, dr : dr + hh, dc : dc + ww,
+                       (2 * dr + dc) * f : (2 * dr + dc + 1) * f]
                 t = jax.lax.pad(
-                    p, zero,
+                    ph, zero,
                     [(0, 0, 0), (dr, 1 - dr, 1), (dc, 1 - dc, 1), (0, 0, 0)],
                 )  # (b, 2h, 2w, f), nonzero only at rows≡dr, cols≡dc mod 2
                 y = t if y is None else y + t
@@ -298,13 +339,13 @@ def _subpixel_upconv(conv: nn.Conv, x: jax.Array) -> jax.Array:
     return y + bias
 
 
-class ConvDecoder(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class ConvDecoder(_Module):
     """Dense → reshape → (nearest-resize ×2 + conv) stack → logit image.
 
     upsample: 'resize' applies the literal nearest-resize + 3×3 conv;
     'subpixel' computes the SAME function (shared params, identical
-    checkpoint tree) as a fused low-res 2×2 conv + depth-to-space — the
-    fast path on TPU (see _subpixel_upconv).
+    checkpoint tree) as a fused low-res conv (see _subpixel_upconv).
     """
 
     image_shape: tuple[int, int, int]  # (H, W, C)
@@ -312,9 +353,8 @@ class ConvDecoder(nn.Module):
     dtype: jnp.dtype = jnp.float32
     upsample: str = "resize"
 
-    @nn.compact
-    def __call__(self, z: jax.Array) -> jax.Array:
-        H, W, C = self.image_shape
+    def _base_hw(self) -> tuple[int, int]:
+        H, W, _ = self.image_shape
         depth = len(self.features)
         h0, w0 = H // (2**depth), W // (2**depth)
         if h0 * (2**depth) != H or w0 * (2**depth) != W:
@@ -325,32 +365,42 @@ class ConvDecoder(nn.Module):
             raise ValueError(
                 f"unknown upsample {self.upsample!r}; want 'resize' or 'subpixel'"
             )
-        h = z.astype(self.dtype)
-        h = nn.elu(nn.Dense(h0 * w0 * self.features[0], dtype=self.dtype)(h))
+        return h0, w0
+
+    def init_params(self, key, in_dim: int) -> dict:
+        h0, w0 = self._base_hw()
+        feats = tuple(self.features)
+        keys = jax.random.split(key, len(feats) + 2)
+        p = {"Dense_0": _dense_init(keys[0], in_dim, h0 * w0 * feats[0])}
+        c = feats[0]
+        for i, f in enumerate(feats):
+            p[f"Conv_{i}"] = _conv_init(keys[i + 1], c, f)
+            c = f
+        p[f"Conv_{len(feats)}"] = _conv_init(keys[-1], c, self.image_shape[2])
+        return p
+
+    def init(self, key, z: jax.Array) -> dict:
+        return {"params": self.init_params(key, z.shape[-1])}
+
+    def forward(self, p: dict, z: jax.Array) -> jax.Array:
+        h0, w0 = self._base_hw()
+        depth = len(self.features)
+        h = jax.nn.elu(_dense(p["Dense_0"], z, self.dtype))
         h = h.reshape(h.shape[0], h0, w0, self.features[0])
-        for f in self.features:
-            conv = nn.Conv(f, (3, 3), padding="SAME", dtype=self.dtype)
+        for i in range(depth):
+            conv = p[f"Conv_{i}"]
             if self.upsample == "subpixel":
-                h = nn.elu(_subpixel_upconv(conv, h))
+                h = jax.nn.elu(_subpixel_upconv(conv, h, self.dtype))
             else:
                 b, hh, ww, cc = h.shape
                 h = jax.image.resize(h, (b, hh * 2, ww * 2, cc), "nearest")
-                h = nn.elu(conv(h))
-        # NOTE on the cout=C logit conv: at C=1 XLA:TPU lowers it through a
-        # VPU multiply-reduce emitter (EmitInputBatchInLanes) fused with the
-        # whole recon-loss chain — ~18% of device time fwd+bwd at ~2% of
-        # FLOPs (trace_r3c). Two exact rewrites were measured SLOWER
-        # (same-minute A/Bs, BASELINE.md round-3 second pass): zero-padding
-        # the kernel to 8 output channels + slice (0.0160 → 0.0165 — the
-        # slice breaks the loss-chain fusion and materializes 8× output),
-        # and flattening the loss math to (bs, D) (XLA reshape-motion
-        # canonicalizes it back — identical program fingerprint). The fused
-        # VPU chain is the better trade at these shapes; leave it alone.
-        logits = nn.Conv(C, (3, 3), padding="SAME", dtype=self.dtype)(h)
+                h = jax.nn.elu(_conv(conv, h, self.dtype))
+        logits = _conv(p[f"Conv_{depth}"], h, self.dtype)
         return logits.astype(jnp.float32)
 
 
-class VAE(nn.Module):
+@dataclasses.dataclass(frozen=True)
+class VAE(_Module):
     """Encoder+decoder bundle; one params pytree for the --vae_weights handoff."""
 
     zdim: int
@@ -360,18 +410,29 @@ class VAE(nn.Module):
     dtype: jnp.dtype = jnp.float32
     upsample: str = "resize"
 
-    def setup(self):
-        self.encoder = ConvEncoder(self.zdim, self.enc_features, self.dtype)
-        self.decoder = ConvDecoder(self.image_shape, self.dec_features,
-                                   self.dtype, self.upsample)
+    @property
+    def encoder(self) -> ConvEncoder:
+        return ConvEncoder(self.zdim, tuple(self.enc_features), self.dtype)
 
-    def __call__(self, y: jax.Array, rng: jax.Array):
-        mu, logvar = self.encoder(y)
+    @property
+    def decoder(self) -> ConvDecoder:
+        return ConvDecoder(tuple(self.image_shape), tuple(self.dec_features),
+                           self.dtype, self.upsample)
+
+    def init(self, key, y: jax.Array, rng=None) -> dict:
+        k_enc, k_dec = jax.random.split(key)
+        return {"params": {
+            "encoder": self.encoder.init_params(k_enc, y.shape),
+            "decoder": self.decoder.init_params(k_dec, self.zdim),
+        }}
+
+    def forward(self, p: dict, y: jax.Array, rng: jax.Array):
+        mu, logvar = self.encode(p, y)
         z = reparameterize(rng, mu, logvar)
-        return self.decoder(z), mu, logvar, z
+        return self.decode(p, z), mu, logvar, z
 
-    def encode(self, y: jax.Array):
-        return self.encoder(y)
+    def encode(self, p: dict, y: jax.Array):
+        return self.encoder.forward(p["encoder"], y)
 
-    def decode(self, z: jax.Array):
-        return self.decoder(z)
+    def decode(self, p: dict, z: jax.Array):
+        return self.decoder.forward(p["decoder"], z)

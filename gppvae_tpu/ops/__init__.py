@@ -1,29 +1,12 @@
-"""Hot linear-algebra ops with switchable backends (XLA ↔ Pallas).
+"""Hot linear-algebra ops of the GP layer (plain jax.numpy / lax).
 
 The reference leans on cuBLAS/MAGMA through torch for its GP linear algebra
-(SURVEY.md §2.2); here every hot op goes through this dispatch layer so the
-GP math in `gppvae_tpu.gp` is backend-agnostic:
-
-  * 'xla'    — jax.numpy; XLA already lowers these to the MXU optimally for
-               most shapes. Always available; the correctness reference.
-  * 'pallas' — hand-tuned TPU kernels in gppvae_tpu/ops/pallas_*.py (tiled
-               Gram, fused squared-norm reductions, …) for the HBM-resident
-               N-sized operands of the GP phase.
-
-Select globally with `set_backend('pallas')`, per-call with `impl=`, or via
-the GPPVAE_OPS_BACKEND environment variable. Pallas kernels silently fall
-back to XLA for shapes/dtypes they do not cover (e.g. float64 in tests, tiny
-ranks) so the math layer never needs to care.
+(SURVEY.md §2.2); here every hot op is one function in `ops.linalg`, so the
+GP math in `gppvae_tpu.gp` names its hot spots in one place.
 """
 
-from gppvae_tpu.ops.dispatch import (
+from gppvae_tpu.ops.linalg import (
     factor_prep,
-    get_backend,
-    get_mesh,
-    set_backend,
-    set_mesh,
-    use_backend,
-    use_mesh,
     gram,
     matmul_tn,
     sqnorm,
@@ -32,12 +15,6 @@ from gppvae_tpu.ops.dispatch import (
 
 __all__ = [
     "factor_prep",
-    "get_backend",
-    "get_mesh",
-    "set_backend",
-    "set_mesh",
-    "use_backend",
-    "use_mesh",
     "gram",
     "matmul_tn",
     "sqnorm",

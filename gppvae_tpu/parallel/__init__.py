@@ -1,10 +1,10 @@
 """Scale-out layer: device mesh, shardings, sharded-N GP math.
 
 The reference is single-process single-GPU (SURVEY.md §2.2: no distributed
-backend at all); this layer is the TPU-native scaling story (SURVEY.md §5):
+backend at all); this layer is the scaling story (SURVEY.md §5):
 a 1-D `data` mesh over the chips, the dataset/latent/feature matrices
 row-sharded over it, and the GP's R-sized reductions (Gram UᵀU, UᵀZ)
-psum'ed over ICI — XLA's SPMD partitioner inserts the collectives from
+psum'ed over the interconnect — XLA's SPMD partitioner inserts the collectives from
 sharding annotations (the scaling-book recipe: pick a mesh, annotate, let
 XLA do the rest). Validated without hardware on a virtual CPU mesh
 (SURVEY.md §4.5) and by __graft_entry__.dryrun_multichip.

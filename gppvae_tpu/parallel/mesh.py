@@ -4,7 +4,7 @@ For this workload the one scaling axis is N — dataset rows / latent rows /
 GP feature rows (SURVEY.md §5 "long-context analog"). Everything N-sized is
 sharded on dim 0 across the `data` axis; everything R-sized or parameter-
 sized is replicated. Collectives this induces: one psum of an R×R Gram and
-an R×L projection per GP solve (tiny wire traffic over ICI), plus the usual
+an R×L projection per GP solve (tiny wire traffic over NVLink), plus the usual
 DP gradient psum in the minibatch phase.
 """
 

@@ -1,4 +1,4 @@
-"""SPMD wire audit: what does the compiled mesh program actually put on ICI?
+"""SPMD wire audit: what does the compiled mesh program actually put on the interconnect?
 
 `dryrun_multichip` (and tests/test_parallel.py) prove the 8-device program
 computes the same NUMBERS as single-device — but a program that all-gathered

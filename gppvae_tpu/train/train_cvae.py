@@ -51,7 +51,7 @@ class CVAETrainConfig:
     compute_dtype: str = "float32"
     # saturation-death barrier (losses.logit_saturation_penalty; <=0 off)
     sat_penalty: float = 1.0
-    dec_upsample: str = "resize"  # 'subpixel' = fused MXU-friendly rewrite
+    dec_upsample: str = "resize"  # 'subpixel' = exact fused low-res rewrite
     epochs_per_dispatch: int = 1
     outdir: str | None = None
 

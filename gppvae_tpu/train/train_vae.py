@@ -1,7 +1,7 @@
 """Vanilla conv-VAE pretrain driver (reference: pysrc/faceplace/train_vae.py,
 SURVEY.md §3.1; config BASELINE.json:7).
 
-TPU-first loop design: the whole dataset lives in HBM; one `jax.jit`'ed
+Loop design: the whole dataset lives in device memory; one `jax.jit`'ed
 `lax.scan` runs the entire epoch of minibatch steps on-device (the host
 uploads an epoch RNG key and reads back scalar metrics once per epoch —
 no per-minibatch host↔device traffic, unlike the reference's dataloader).
@@ -43,7 +43,7 @@ from gppvae_tpu.utils import MetricsLogger
 @dataclasses.dataclass(frozen=True)
 class VAETrainConfig:
     """Flags mirror the reference CLI (SURVEY.md §2.1: --zdim --bs --lr
-    --epochs --seed …) plus TPU-native knobs (compute dtype)."""
+    --epochs --seed …) plus accelerator knobs (compute dtype)."""
 
     zdim: int = 16
     epochs: int = 50
@@ -54,12 +54,12 @@ class VAETrainConfig:
     beta_kl: float = 1.0
     enc_features: Sequence[int] = (32, 64, 128)
     dec_features: Sequence[int] = (128, 64, 32)
-    compute_dtype: str = "float32"  # 'bfloat16' for MXU speed
+    compute_dtype: str = "float32"  # 'bfloat16' for tensor-core speed
     # saturation-death barrier weight (losses.logit_saturation_penalty):
     # exactly zero for healthy logits, prevents permanent sigmoid death
     # on extreme-horizon runs (<=0 off)
     sat_penalty: float = 1.0
-    dec_upsample: str = "resize"  # 'subpixel' = fused MXU-friendly rewrite
+    dec_upsample: str = "resize"  # 'subpixel' = exact fused low-res rewrite
     # images stored FLAT (N, H·W·C) above this size, reshaped per gather
     # (default 0 = always; value-exact) — see
     # GPPVAETrainConfig.flat_images_threshold for the layout story

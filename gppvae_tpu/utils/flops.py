@@ -8,7 +8,7 @@ validated against cost_analysis on UNSCANNED jitted subprograms
 (tests/test_flops.py), where XLA's numbers are trustworthy.
 
 Convention: 1 MAC = 2 FLOPs; elementwise/activation/resize traffic is
-ignored (bandwidth-bound, not MXU work); backward = 2× forward for conv and
+ignored (bandwidth-bound, not matrix-unit work); backward = 2× forward for conv and
 dense layers (grad-input + grad-weights), so fwd+bwd = 3× fwd.
 """
 

@@ -1,16 +1,14 @@
-"""Real-TPU end-to-end tier (RUN_TPU_TESTS=1): the fused GPPVAE pipeline
-compiles and trains on the actual chip with the pallas ops backend."""
+"""On-card end-to-end tier (`-m chip`, skipped without a GPU): the fused
+GPPVAE pipeline compiles and trains on the card, and the serving path
+answers from the live model and from exported blobs."""
 
 import numpy as np
 import pytest
 
-pytestmark = pytest.mark.tpu
+pytestmark = pytest.mark.chip
 
 
-def test_fused_gppvae_on_tpu():
-    import jax
-
-    assert jax.default_backend() == "tpu"
+def test_fused_gppvae_on_chip(chip):
     from gppvae_tpu.data import build_rotated_digits
     from gppvae_tpu.train import GPPVAETrainConfig, train_gppvae
 
@@ -19,7 +17,7 @@ def test_fused_gppvae_on_tpu():
         mode="joint", zdim=8, epochs=6, batch_size=32, lr_gp=5e-3,
         obj_feature_dim=4, view_num_freqs=2,
         enc_features=(8, 16), dec_features=(16, 8),
-        epochs_per_dispatch=3, ops_backend="pallas",
+        epochs_per_dispatch=3,
     )
     result = train_gppvae(ds, config)
     losses = [h["loss"] for h in result.history]
@@ -28,7 +26,7 @@ def test_fused_gppvae_on_tpu():
     assert result.history[-1]["oos_mse"] < result.history[0]["oos_mse"]
 
 
-def test_serving_fold_and_throughput_on_tpu():
+def test_serving_fold_and_throughput_on_chip(chip):
     """The deployment path on the real chip: fold the posterior once,
     answer request batches through ONE compiled program, posterior
     sampling included — the machinery behind bench's oos_serving number
@@ -38,7 +36,6 @@ def test_serving_fold_and_throughput_on_tpu():
     import jax
     import jax.numpy as jnp
 
-    assert jax.default_backend() == "tpu"
     from gppvae_tpu.data import build_rotated_digits
     from gppvae_tpu.eval import build_server_state, predict_images, sample_images
     from gppvae_tpu.train import GPPVAETrainConfig, train_gppvae
@@ -89,7 +86,7 @@ def test_serving_fold_and_throughput_on_tpu():
     assert (var1 <= var0 + 1e-6).all() and (var1 < var0 - 1e-6).any()
 
     # the exported-blob surface on the real chip (round-5): mean + joint
-    # sample entries answer identically to the live-model path — the tpu
+    # sample entries answer like the live-model path — the cuda
     # lowering inside the v2 artifact is executed, not just serialized
     import tempfile
 
@@ -105,9 +102,12 @@ def test_serving_fold_and_throughput_on_tpu():
             entry_points=("mean", "sample_joint", "observe", "sample_core"),
         )
         exp, _ = load_compiled_program(exe)
+        # a separate compilation of a bf16 model: on the card its roundings
+        # need not match the live program's bit for bit (bit-exactness of
+        # the blob is pinned on the f32 CPU tier)
         np.testing.assert_allclose(
             np.asarray(exp.call(d, q)), np.asarray(served(state, d, q)),
-            atol=1e-6,
+            atol=8e-3,
         )
         exp_j, _ = load_compiled_program(exe, entry="sample_joint")
         y_exe = np.asarray(exp_j.call(d[:2], q[:2], jnp.int32(5),

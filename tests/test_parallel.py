@@ -60,64 +60,6 @@ def test_sharded_taylor_grads_match():
     assert out.dZ.sharding.is_equivalent_to(row_sharding(mesh), ndim=2)
 
 
-def test_factor_prep_shard_map_pallas_interpret_parity(monkeypatch):
-    """Pallas under the mesh (round-2): ops.factor_prep with backend
-    'pallas' + a declared mesh runs the fused kernel per-shard inside
-    shard_map (interpret mode on CPU) and psums the R-sized outputs —
-    values AND gradients must match the plain XLA result."""
-    monkeypatch.setenv("GPPVAE_PALLAS_INTERPRET", "1")
-    from gppvae_tpu import ops
-
-    key = jax.random.PRNGKey(3)
-    k1, k2 = jax.random.split(key)
-    N, R, L = 256, 24, 8
-    U = jax.random.normal(k1, (N, R), jnp.float32)
-    Z = jax.random.normal(k2, (N, L), jnp.float32)
-
-    ref = ops.factor_prep(U, Z, impl="xla")
-
-    def loss(u, z, impl=None):
-        g, utz, zn = ops.factor_prep(u, z, impl=impl)
-        return jnp.sum(g * g) + jnp.sum(utz) + zn
-
-    ref_grads = jax.grad(loss, argnums=(0, 1))(U, Z, "xla")
-
-    mesh = make_mesh(8)
-    Us, Zs = shard_rows(mesh, U, Z)
-    with ops.use_backend("pallas"), ops.use_mesh(mesh):
-        out = jax.jit(lambda u, z: ops.factor_prep(u, z))(Us, Zs)
-        grads = jax.jit(jax.grad(loss, argnums=(0, 1)))(Us, Zs)
-    # fp32: per-shard partial sums reorder the N-reduction (8 shards);
-    # atol covers near-zero entries of the ~1e3-magnitude gradients
-    for o, r in zip(out, ref):
-        np.testing.assert_allclose(o, r, rtol=3e-4, atol=1e-3)
-    for g, r in zip(grads, ref_grads):
-        np.testing.assert_allclose(g, r, rtol=3e-4, atol=1e-3)
-
-
-def test_gppvae_mesh_pallas_matches_xla(monkeypatch):
-    """End-to-end: GPPVAE on the mesh with ops_backend='pallas' (interpret
-    kernels inside shard_map) reproduces the mesh-XLA trajectory."""
-    monkeypatch.setenv("GPPVAE_PALLAS_INTERPRET", "1")
-    from gppvae_tpu.data import build_rotated_digits
-    from gppvae_tpu.train import GPPVAETrainConfig, train_gppvae
-
-    ds = build_rotated_digits("synthetic", num_objects=16, num_views=8, seed=0)
-    mesh = make_mesh(8)
-    kw = dict(
-        mode="joint", zdim=8, epochs=1, batch_size=16,
-        obj_feature_dim=4, view_num_freqs=2,
-        enc_features=(8, 16), dec_features=(16, 8),
-    )
-    a = train_gppvae(ds, GPPVAETrainConfig(**kw, ops_backend="xla"), mesh=mesh)
-    b = train_gppvae(ds, GPPVAETrainConfig(**kw, ops_backend="pallas"), mesh=mesh)
-    for key in ("loss", "gp_term", "gp_nll_full", "oos_mse"):
-        np.testing.assert_allclose(
-            a.history[0][key], b.history[0][key], rtol=5e-4,
-            err_msg=f"pallas-vs-xla mesh mismatch on {key!r}",
-        )
-
-
 def test_gppvae_mesh_subpixel_matches_mesh_resize():
     """The subpixel decoder composes with the mesh: one DP-sharded epoch in
     subpixel mode equals the same mesh epoch with the literal resize

@@ -88,7 +88,7 @@ def test_resume_preserves_trajectory_across_dispatch_sizes(tmp_path):
 def test_checkpoint_format_version_sidecar(tmp_path):
     """Round-4 (VERDICT round-3 weak #4): every saved train state records
     FORMAT_VERSION in a .format.json sidecar; a version mismatch raises the
-    NAMED CheckpointFormatError instead of a raw orbax structure error."""
+    NAMED CheckpointFormatError instead of a raw structure error."""
     import pytest as _pytest
 
     from gppvae_tpu.checkpoint import CheckpointFormatError, FORMAT_VERSION
@@ -115,7 +115,7 @@ def test_old_format_checkpoint_raises_named_error(tmp_path):
     """A pre-round-3 state tree (plain optax.adam optimizer states, no
     spike_guard wrapper, no sidecar) must fail with the named
     CheckpointFormatError explaining the format history — not an opaque
-    orbax traceback."""
+    structure traceback."""
     import optax
     import pytest as _pytest
 
@@ -204,9 +204,9 @@ def test_generate_cli_views_and_samples(tmp_path, capsys):
     assert panel.exists()
     # all K=5 sample columns must render (save_panel truncates rows to the
     # SHORTEST row, so a 1-image truth row would silently drop 4 draws)
-    from PIL import Image
+    import struct
 
-    w, _h = Image.open(panel).size
+    w = struct.unpack(">I", panel.read_bytes()[16:20])[0]  # IHDR width
     assert w >= 5 * 32, f"panel width {w}: sample columns were truncated"
 
     # joint sweep: K COHERENT draws over the object's full view row from
@@ -219,7 +219,7 @@ def test_generate_cli_views_and_samples(tmp_path, capsys):
     assert all(np.isfinite(v) and v > 0 for v in rec["posterior_var"])
     sweep = tmp_path / "run" / "posterior_sweep_obj3.png"
     assert sweep.exists()
-    w, h = Image.open(sweep).size
+    w, h = struct.unpack(">II", sweep.read_bytes()[16:24])  # IHDR
     assert w >= 8 * 32 and h >= 4 * 32, (w, h)  # truth + 3 draws × 8 views
 
     # --draw_seed varies ONLY the draws (the feature-map seed — which must

@@ -750,7 +750,7 @@ def test_serve_cli_end_to_end(tmp_path, capsys):
 
 def test_export_compiled_program_roundtrip(tmp_path, capsys, trained):
     """`serve --export_exe` serializes the WHOLE serving program
-    (jax.export: weights baked in, batch dim symbolic, lowered for tpu+cpu
+    (jax.export: weights baked in, batch dim symbolic, lowered for cuda+cpu
     up front); `serve --exe` answers requests from the blob alone — no
     model rebuild, no feature maps. Answers match the --state path (to one
     executable-level ulp) at more than one batch size."""
@@ -781,7 +781,7 @@ def test_export_compiled_program_roundtrip(tmp_path, capsys, trained):
     exe = str(tmp_path / "m.exe")
     meta = export_compiled_program(model, state, exe)
     assert meta["grid"] == [int(state.X.shape[0]), int(state.W.shape[0])]
-    assert set(meta["platforms"]) == {"tpu", "cpu"}
+    assert set(meta["platforms"]) == {"cuda", "cpu"}
 
     exp, meta2 = load_compiled_program(exe)
     assert meta2 == meta

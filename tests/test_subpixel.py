@@ -3,9 +3,8 @@
 ConvDecoder(upsample='subpixel') must compute the SAME function as the
 literal nearest-resize×2 + 3×3 conv path, with an IDENTICAL parameter
 tree (so vae_weights/checkpoints interchange freely between the modes).
-The rewrite is the main MXU-efficiency lever (BASELINE.md roofline): a
-2×2 low-res conv with 4× output channels instead of a 3×3 conv on the
-upsampled grid — 2.25× fewer MACs and full 128-lane C_out shapes.
+The rewrite computes a 2×2 low-res conv with 4× output channels instead
+of a 3×3 conv on the upsampled grid — 2.25× fewer MACs and wider C_out.
 """
 
 import jax
@@ -97,5 +96,6 @@ def test_subpixel_impl_env_typo_rejected(monkeypatch):
     with different defaults)."""
     monkeypatch.setenv("GPPVAE_SUBPIXEL_IMPL", "dialted")
     dec = ConvDecoder((32, 32, 1), (32, 16), upsample="subpixel")
+    params = dec.init(jax.random.PRNGKey(0), jnp.zeros((1, 8)))
     with pytest.raises(ValueError, match="GPPVAE_SUBPIXEL_IMPL"):
-        dec.init(jax.random.PRNGKey(0), jnp.zeros((1, 8)))
+        dec.apply(params, jnp.zeros((1, 8)))

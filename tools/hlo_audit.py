@@ -1,8 +1,7 @@
-"""HLO copy audit for the fused GPPVAE program (round-3 perf work).
+"""HLO copy audit for the fused GPPVAE program.
 
-The round-2 device trace showed ~10% of device time in `copy` ops inside
-the fused multi-epoch dispatch (scan-carry / donation copies —
-BASELINE.md "Fast-mode device trace"). This tool compiles the EXACT
+Copies inside the fused multi-epoch dispatch (scan-carry / donation
+copies) cost device time without computing anything. This tool compiles the EXACT
 headline program, parses the optimized HLO, and reports every copy /
 copy-start instruction with its shape and byte count, grouped and ranked —
 the evidence base for deciding which carried trees XLA fails to alias
@@ -12,9 +11,9 @@ the evidence base for deciding which carried trees XLA fails to alias
         [--upsample subpixel] [--epochs_per_dispatch 20] [--bs 128]
 
 Writes <out>/fused.hlo.txt (full optimized HLO) and prints a JSON summary.
-Platform-agnostic: runs on the TPU backend by default, CPU with
-JAX_PLATFORMS=cpu (layout decisions differ — audit on TPU for real
-numbers).
+Platform-agnostic: runs on the default backend (the GPU where there is
+one), the CPU with JAX_PLATFORMS=cpu (layout decisions differ — audit on
+the card for real numbers).
 """
 
 from __future__ import annotations
@@ -80,9 +79,6 @@ def audit_hlo_text(hlo: str) -> dict:
 def compile_fused(dtype: str, upsample: str, epd: int, bs: int,
                   num_objects: int = 400, num_views: int = 16):
     """Compile the exact benchmark fused program; returns (compiled, meta)."""
-    import jax
-
-    from gppvae_tpu import ops
     from gppvae_tpu.data import build_rotated_digits
     from gppvae_tpu.train.batching import epoch_keys
     from gppvae_tpu.train.train_gppvae import (
@@ -91,36 +87,34 @@ def compile_fused(dtype: str, upsample: str, epd: int, bs: int,
 
     ds = build_rotated_digits(
         "synthetic", num_objects=num_objects, num_views=num_views,
-        image_size=32, seed=0, cache_dir="/tmp/gppvae_bench_cache",
+        image_size=32, seed=0,
     )
     config = GPPVAETrainConfig(
         mode="joint", zdim=16, epochs=epd, batch_size=bs,
         obj_feature_dim=8, view_num_freqs=3, seed=0,
         epochs_per_dispatch=epd, compute_dtype=dtype, dec_upsample=upsample,
     )
-    backend = "pallas" if jax.default_backend() == "tpu" else "xla"
-    with ops.use_backend(backend):
-        model, params, fixed_W, a, rng, num_train = _setup(
-            ds, config, None, None
-        )
-        # the trainer's REAL guarded optimizers (spike_guard), so the audited
-        # HLO is the shipped program, not an unguarded approximation
-        opt_vae = make_optimizer(config.lr_vae, config.clip_grad_norm)
-        opt_gp = make_optimizer(config.lr_gp, config.clip_grad_norm)
-        loop = _Loop(model, opt_vae, opt_gp, config, num_train, None)
-        compiled = loop.make_fused_fn(epd).lower(
-            params, opt_vae.init(params["vae"]), opt_gp.init(params["gp"]),
-            fixed_W, a["images_tr"], a["d_tr"], a["q_tr"],
-            a["y_ho"], a["d_ho"], a["q_ho"], epoch_keys(rng, 0, epd),
-            a["row_mask"],
-        ).compile()
+    model, params, fixed_W, a, rng, num_train = _setup(
+        ds, config, None, None
+    )
+    # the trainer's REAL guarded optimizers (spike_guard), so the audited
+    # HLO is the shipped program, not an unguarded approximation
+    opt_vae = make_optimizer(config.lr_vae, config.clip_grad_norm)
+    opt_gp = make_optimizer(config.lr_gp, config.clip_grad_norm)
+    loop = _Loop(model, opt_vae, opt_gp, config, num_train, None)
+    compiled = loop.make_fused_fn(epd).lower(
+        params, opt_vae.init(params["vae"]), opt_gp.init(params["gp"]),
+        fixed_W, a["images_tr"], a["d_tr"], a["q_tr"],
+        a["y_ho"], a["d_ho"], a["q_ho"], epoch_keys(rng, 0, epd),
+        a["row_mask"],
+    ).compile()
     return compiled, {"n_train": num_train, "epochs_per_dispatch": epd,
                       "dtype": dtype, "upsample": upsample, "bs": bs}
 
 
 def main(argv=None):
     p = argparse.ArgumentParser()
-    p.add_argument("--out", default="/tmp/hlo_audit")
+    p.add_argument("--out", default="out/hlo_audit")
     p.add_argument("--dtype", default="bfloat16")
     p.add_argument("--upsample", default="subpixel")
     p.add_argument("--epochs_per_dispatch", type=int, default=20)

@@ -8,8 +8,7 @@ discipline: one jitted fold program (state as a pytree argument, fixed
 batch shape), K chained folds inside ONE lax.scan dispatch with a
 checksum readback (the chain is sequential by construction — core_{i+1}
 depends on core_i — so this measures the true dependent-fold rate, and
-the checksum depends on every fold's output so a memoizing relay still
-does the work).
+the checksum depends on every fold's output, so no fold can be skipped).
 
     python tools/observe_throughput.py [--out FILE.json]
 

@@ -1,20 +1,15 @@
-"""Model/data-shape exploration (round-3 VERDICT #8's sanctioned perf lever).
-
-The headline 32²×C1 epoch is measured conv/VPU-emitter-bound twice over
-(demo/trace_r3b/r3c): the C=1 logit conv's fused loss chain and the
-dilated-conv weight-grad transposes resist every exact rewrite tried, so
-MFU past ~32% at THAT shape needs emitter changes XLA doesn't expose. The
-honest remaining question is how efficiency moves with the model/data
-shape — larger images (more spatial rows per conv) and more channels
-(lane-aligned C_out) should both push the conv emitters toward MXU-bound
-shapes. This measures it:
+"""Model/data-shape exploration: how training efficiency moves with the
+image size and channel count. Larger images (more spatial rows per conv)
+and more channels (wider C_out) should both push the convs toward
+tensor-core-bound shapes. This measures it on the card:
 
     python tools/shape_explore.py [--epochs 40] [--epd 20] [--out PATH]
 
 Each variant trains the real fused GPPVAE-joint program for `--epochs`
 epochs in the headline fast mode (bf16 + subpixel/dilated) and reports
 median/min s/epoch, images/s, and analytic MFU (utils/flops.py — the same
-accounting as bench.py). Exploration evidence for BASELINE.md, NOT the
+accounting as bench.py, priced against bench.BF16_PEAK_FLOPS by
+device_kind; an unknown kind gets none). Exploration evidence, NOT the
 headline: variants change the benchmark shape.
 
 Variants:
@@ -22,7 +17,7 @@ Variants:
   digits64   same grid at 64² — 4× conv rows per image
   faces64    P=100×Q=8 synthetic faces, 64², C=3
   faces128   P=50×Q=8 synthetic faces, 128², C=3   (bench config 4's shape)
-  digits32c8 32² digits tiled to C=8 — lane-friendlier logit conv, same
+  digits32c8 32² digits tiled to C=8 — a wider logit conv, same
              pixels-per-image information (channel-tiled copies)
 """
 
@@ -42,9 +37,6 @@ import numpy as np
 # first on-chip drive of this tool an instant ModuleNotFoundError)
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-BF16_PEAK_FLOPS = 197e12
-
-
 def _tile_channels(ds, c: int):
     """Channel-tile a C=1 grid dataset to C=c (same images repeated across
     channels — an exploration shape, not a new task)."""
@@ -56,12 +48,10 @@ def _variants(seed: int):
     from gppvae_tpu.data import build_faceplace, build_rotated_digits
 
     d32 = build_rotated_digits("synthetic", num_objects=400, num_views=16,
-                               image_size=32, seed=seed,
-                               cache_dir="/tmp/gppvae_bench_cache")
+                               image_size=32, seed=seed)
     yield "digits32", d32, dict(zdim=16, batch_size=128)
     yield "digits64", build_rotated_digits(
         "synthetic", num_objects=400, num_views=16, image_size=64, seed=seed,
-        cache_dir="/tmp/gppvae_bench_cache",
     ), dict(zdim=16, batch_size=128)
     yield "faces64", build_faceplace(
         "synthetic", num_people=100, num_poses=8, image_size=64, seed=seed,
@@ -82,6 +72,9 @@ def main(argv=None):
     p.add_argument("--out", default=None, help="also write the JSON here")
     args = p.parse_args(argv)
 
+    import jax
+
+    from bench import mfu
     from gppvae_tpu.train import GPPVAETrainConfig, train_gppvae
     from gppvae_tpu.utils.flops import gppvae_epoch_flops
     from gppvae_tpu.utils.metrics import NullLogger
@@ -118,7 +111,8 @@ def main(argv=None):
             "images_per_sec": round(len(ds.train_idx) / sec),
             "flops_per_epoch": fl["total"],
             "achieved_tflops": round(fl["total"] / sec / 1e12, 2),
-            "mfu_vs_bf16_peak": round(fl["total"] / sec / BF16_PEAK_FLOPS, 4),
+            "mfu_vs_bf16_peak": mfu(fl["total"] / sec,
+                                    jax.devices()[0].device_kind),
             "oos_mse": round(res.history[-1]["oos_mse"], 5),
             "wall_s": round(wall, 1),
         }

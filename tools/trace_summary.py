@@ -1,15 +1,14 @@
 """Capture + summarize a device trace of the fused GPPVAE dispatch.
 
-Round-2's roofline audit (BASELINE.md, demo/trace_r2/) was produced with
-ad-hoc parsing; this makes it reproducible:
+A reproducible device-trace audit of the fused dispatch:
 
-    python tools/trace_summary.py --out demo/trace_fast \
+    python tools/trace_summary.py --out out/trace_fast \
         --dtype bfloat16 --upsample subpixel
 
 Runs the benchmark-shape GPPVAE-joint config with jax.profiler tracing,
-then parses the catapult-format trace the TPU plugin emits
-(plugins/profile/<ts>/*.trace.json.gz): per-dispatch device time of the
-dominant jit module, device occupancy inside the dispatch window (union of
+then parses a catapult-format trace (plugins/profile/<ts>/*.trace.json.gz)
+whose device planes carry "XLA Modules" and "XLA Ops" threads:
+per-dispatch device time of the dominant jit module, device occupancy inside the dispatch window (union of
 non-`while` op intervals on the "XLA Ops" thread), and an op-category time
 breakdown. Writes <out>/summary.json and a one-dispatch slice
 <out>/dispatch_slice.trace.json.gz viewable in Perfetto.
@@ -45,8 +44,8 @@ def _categorize(name: str) -> str:
         return "other_fusion"
     if "while" in n:
         return "while_wrapper"
-    if "custom-call" in n or "tpu_custom_call" in n or "pallas" in n:
-        return "custom_call (pallas)"
+    if "custom-call" in n or "custom_call" in n:
+        return "custom_call"
     return "other"
 
 
@@ -217,7 +216,6 @@ def capture(args) -> str:
     ds = build_rotated_digits(
         "synthetic", num_objects=args.num_objects, num_views=16,
         image_size=32, seed=0,
-        cache_dir="/tmp/gppvae_bench_cache",  # tag already keys num_objects
     )
     tmp = tempfile.mkdtemp(prefix="gppvae_trace_")
     cfg = GPPVAETrainConfig(
